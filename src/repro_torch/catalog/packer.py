@@ -1,0 +1,236 @@
+"""Vectorized ColumnBatch packing with power-of-two shape bucketing.
+
+Replaces the historical per-column Python loop in `ColumnBatch.from_columns`
+with whole-batch numpy operations: every per-chunk field of every column is
+concatenated once and scattered into the padded (B, R) plane with a single
+fancy-indexed assignment; per-column scalars (row counts, mean statistic
+lengths, distinct min/max counts) come from `np.bincount` segment sums over
+the same flat layout.
+
+Shape bucketing bounds the distinct (B, R) shapes the estimator and its
+kernels see: rounding both axes up to the next power of two (with small
+floors) caps them at O(log B · log R) across a fleet, while the padding
+lanes stay fully masked (`valid=False`, `n_groups=0`) — estimates for real
+lanes are bit-identical to the unpadded pack because every estimator
+reduction is masked or per-lane. Packing is numpy on the host; only the
+finished planes become (CPU) torch tensors, which the engine or the catalog
+moves to the device once.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.ndv.types import ColumnBatch, ColumnMetadata, PhysicalType
+
+# Per-PhysicalType lookup tables, indexed by the enum value.
+_N_TYPES = max(int(t) for t in PhysicalType) + 1
+_FIXED_WIDTH = np.zeros(_N_TYPES, np.float32)
+_INT_LIKE = np.zeros(_N_TYPES, bool)
+for _t in PhysicalType:
+    _FIXED_WIDTH[int(_t)] = float(_t.fixed_width or 0)
+    _INT_LIKE[int(_t)] = _t.is_integer_like
+_BYTE_ARRAY = int(PhysicalType.BYTE_ARRAY)
+
+
+def bucket_size(n: int, floor: int = 1) -> int:
+    """Round n up to the next power of two, at least `floor`."""
+    n = max(int(n), int(floor), 1)
+    return 1 << (n - 1).bit_length()
+
+
+def concat_batches(
+    batches: Sequence[ColumnBatch], *, pad_to: Optional[int] = None
+) -> ColumnBatch:
+    """Concatenate packed batches along the column (B) axis.
+
+    The super-pack primitive: several already-packed `ColumnBatch`es become
+    one batch of `sum(B_i)` lanes (optionally zero-padded up to `pad_to`),
+    executable as a single engine call. Lane `offset_i + j` of the result is
+    lane `j` of batch `i`, where `offset_i = sum(B_k for k < i)`.
+
+    Exactness: concatenation along B is bit-identical per lane because no
+    estimator op mixes information across the B axis (the engine re-tiling
+    contract), and B padding lanes are the packer's own fully-masked zeros.
+    Batches with ragged row-group (R) axes are zero-padded to the common
+    max — those cells are masked (`valid=False`) so results stay correct,
+    but masked R-axis *reductions* may re-associate at the longer width, so
+    callers that need bit-identity with each batch's standalone estimate
+    should group same-R batches (as `superpack_estimate` does) rather than
+    mix widths.
+    """
+    if not batches:
+        raise ValueError("concat_batches needs at least one batch")
+    R = max(b.max_groups for b in batches)
+    total = sum(b.batch for b in batches)
+    target = max(int(pad_to or 0), total)
+
+    def cat(*leaves):
+        parts = []
+        for x in leaves:
+            if x.dim() == 2 and x.shape[1] < R:
+                x = torch.cat([x, x.new_zeros((x.shape[0], R - x.shape[1]))], dim=1)
+            parts.append(x)
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+        if out.shape[0] < target:
+            pad = out.new_zeros((target - out.shape[0],) + tuple(out.shape[1:]))
+            out = torch.cat([out, pad], dim=0)
+        return out
+
+    if len(batches) == 1 and batches[0].batch == target:
+        return batches[0]  # nothing to do — keep the (resident) tensors as-is
+    names = batches[0].fields().keys()
+    return ColumnBatch(
+        **{k: cat(*(b.fields()[k] for b in batches)) for k in names}
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPacker:
+    """Packs ColumnMetadata sequences into (optionally bucketed) batches.
+
+    Attributes:
+      bucket_rows / bucket_cols: round the row-group / column axis up to a
+        power of two. Both default True — the catalog path wants a bounded
+        set of shapes; `ColumnBatch.from_columns` disables both for its
+        exact-shape contract.
+      row_floor / col_floor: minimum bucketed sizes, so tiny datasets share
+        one shape instead of exercising 1/2/4-wide shapes separately.
+      col_multiple: round B up to a multiple of this after bucketing, so a
+        sharded engine can split the batch evenly on the B axis. The extra
+        lanes are ordinary masked padding (`valid=False`, `n_groups=0`).
+      col_chunk: the composed engine's per-shard chunk budget. When
+        nonzero, a batch wider than one super-chunk
+        (`col_multiple * col_chunk` lanes — one dispatch of `col_chunk`
+        per shard) rounds B up to a whole number of super-chunks, so every
+        shard's slice splits into equal full chunks: one shape, no ragged
+        tail, no engine-side re-padding. Batches that fit a
+        single super-chunk only round to `col_multiple` (plain even
+        sharding) — narrow datasets never pad out to a full super-chunk.
+    """
+
+    bucket_rows: bool = True
+    bucket_cols: bool = True
+    row_floor: int = 8
+    col_floor: int = 1
+    col_multiple: int = 1
+    col_chunk: int = 0
+
+    def shape_for(self, num_columns: int, max_groups: int) -> tuple:
+        b = (
+            bucket_size(num_columns, self.col_floor)
+            if self.bucket_cols
+            else max(int(num_columns), 1)
+        )
+        m = max(int(self.col_multiple), 1)
+        b = -(-b // m) * m
+        stride = m * max(int(self.col_chunk), 0)
+        if stride and b > stride:
+            b = -(-b // stride) * stride
+        r = (
+            bucket_size(max_groups, self.row_floor)
+            if self.bucket_rows
+            else max(int(max_groups), 1)
+        )
+        return b, r
+
+    def pack(self, cols: Sequence[ColumnMetadata]) -> ColumnBatch:
+        """Pack per-column metadata into a padded struct-of-arrays batch."""
+        nb = len(cols)
+        n_per = np.fromiter((c.num_row_groups for c in cols), np.int64, count=nb)
+        max_r = int(n_per.max()) if nb else 1
+        B, R = self.shape_for(nb, max_r)
+
+        total = int(n_per.sum())
+        # Flat chunk layout: chunk j of column i lands at plane[(i, j)].
+        row_idx = np.repeat(np.arange(nb), n_per)
+        starts = np.zeros(nb, np.int64)
+        np.cumsum(n_per[:-1], out=starts[1:])
+        col_idx = np.arange(total) - np.repeat(starts, n_per)
+
+        def scatter(field: str, dtype) -> np.ndarray:
+            out = np.zeros((B, R), dtype)
+            if total:
+                flat = np.concatenate(
+                    [np.asarray(getattr(c, field)).ravel()[:n] for c, n in zip(cols, n_per)]
+                )
+                out[row_idx, col_idx] = flat.astype(dtype, copy=False)
+            return out
+
+        chunk_S = scatter("chunk_sizes", np.float32)
+        chunk_rows = scatter("chunk_rows", np.float32)
+        chunk_nulls = scatter("chunk_nulls", np.float32)
+        chunk_dict = scatter("chunk_dict_encoded", bool)
+        mins = scatter("mins", np.float32)
+        maxs = scatter("maxs", np.float32)
+        valid = np.zeros((B, R), bool)
+        valid[row_idx, col_idx] = True
+
+        def segsum(field: str) -> np.ndarray:
+            if not total:
+                return np.zeros(nb, np.float64)
+            flat = np.concatenate(
+                [np.asarray(getattr(c, field), np.float64).ravel()[:n] for c, n in zip(cols, n_per)]
+            )
+            return np.bincount(row_idx, weights=flat, minlength=nb)
+
+        N = segsum("chunk_rows")
+        nulls = segsum("chunk_nulls")
+        sum_min_len = segsum("min_lengths")
+        sum_max_len = segsum("max_lengths")
+        max_max_len = np.zeros(nb, np.float64)
+        if total:
+            flat_max_len = np.concatenate(
+                [np.asarray(c.max_lengths, np.float64).ravel()[:n] for c, n in zip(cols, n_per)]
+            )
+            np.maximum.at(max_max_len, row_idx, flat_max_len)
+
+        ptypes = np.fromiter((int(c.physical_type) for c in cols), np.int64, count=nb)
+        m_min = np.fromiter((c.distinct_min_count for c in cols), np.float64, count=nb)
+        m_max = np.fromiter((c.distinct_max_count for c in cols), np.float64, count=nb)
+
+        width = _FIXED_WIDTH[ptypes]
+        is_fixed = width > 0
+        # Variable-width mean statistic length (Eq 4): the mean over all 2n
+        # recorded min/max byte lengths; for n == 1 this is the paper §4.3
+        # (|min| + |max|) / 2 fallback.
+        denom = np.maximum(2.0 * n_per, 1.0)
+        var_mean_len = (sum_min_len + sum_max_len) / denom
+        var_mean_len = np.where(n_per > 0, var_mean_len, 1.0)
+        mean_len = np.where(is_fixed, width, var_mean_len).astype(np.float32)
+        len_sample = np.where(
+            is_fixed,
+            2 * n_per,
+            np.where(n_per == 1, 2, (m_min + m_max).astype(np.int64)),
+        ).astype(np.int32)
+        int_like = _INT_LIKE[ptypes]
+        single_byte = (ptypes == _BYTE_ARRAY) & (max_max_len <= 1.0)
+
+        def padded(a: np.ndarray, dtype) -> np.ndarray:
+            out = np.zeros(B, dtype)
+            out[:nb] = a.astype(dtype, copy=False)
+            return out
+
+        J = torch.from_numpy
+        return ColumnBatch(
+            chunk_S=J(chunk_S),
+            chunk_rows=J(chunk_rows),
+            chunk_nulls=J(chunk_nulls),
+            chunk_dict_encoded=J(chunk_dict),
+            N=J(padded(N, np.float32)),
+            nulls=J(padded(nulls, np.float32)),
+            n_groups=J(padded(n_per, np.int32)),
+            mins=J(mins),
+            maxs=J(maxs),
+            valid=J(valid),
+            m_min=J(padded(m_min, np.float32)),
+            m_max=J(padded(m_max, np.float32)),
+            mean_len=J(padded(mean_len, np.float32)),
+            len_sample=J(padded(len_sample, np.int32)),
+            fixed_width=J(padded(is_fixed, bool)),
+            int_like=J(padded(int_like, bool)),
+            single_byte=J(padded(single_byte, bool)),
+        )

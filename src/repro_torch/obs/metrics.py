@@ -1,0 +1,456 @@
+"""Metrics registry: counters, gauges, histograms, Prometheus exposition.
+
+Stdlib only. Three primitives behind one `MetricsRegistry`:
+
+  `Counter`    monotonically increasing; exposed with the `_total` suffix
+               already in its name by convention.
+  `Gauge`      set/inc/dec to any value.
+  `Histogram`  fixed-bucket; per-cell bucket counts plus sum and count,
+               rendered as the cumulative `_bucket`/`_sum`/`_count` series
+               Prometheus expects.
+
+Label sets are frozen tuples (`(("k","v"), ...)`, sorted by key) — the
+child-cell dict key — and every cell's mutations go through one of the
+registry's striped locks (`hash(labels) % N_STRIPES`), so concurrent
+increments from the serving tier's handler threads are exact without a
+single global hot lock.
+
+Ad-hoc stats objects that predate this registry (`ServiceStats`,
+`IngestStats`, `CatalogStats`, `PoolStats`) are re-registered as VIEWS
+(`register_stats_view`): the registry holds a weakref and reads the
+object's numeric fields at scrape time, so the existing counters stay the
+single source of truth and nothing is double-counted. Dead views (object
+collected) drop out of the exposition on their own.
+
+`exposition()` renders the Prometheus text format (version 0.0.4) with no
+external dependency: `# TYPE`/`# HELP` comments, escaped label values
+(`\\`, `\"`, `\n`), `le="+Inf"` terminal buckets.
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import threading
+import weakref
+from typing import Dict, Iterable, List, Optional, Tuple
+
+from repro_torch.obs import _state
+
+LabelTuple = Tuple[Tuple[str, str], ...]
+
+# Request-latency buckets (seconds): sub-millisecond 304s through
+# multi-second cold packs of wide catalogs.
+LATENCY_BUCKETS_S = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+)
+# Batch-width buckets (tuples per /batch frame): pow2-ish, matching the
+# packer's own bucketing instincts.
+WIDTH_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 1024.0)
+
+# Estimation-quality buckets (`ndv_*` provenance/audit families; naming
+# convention: estimator-quality series are `ndv_<signal>` with `route=` /
+# `solver=` labels, never per-column labels — cardinality stays O(1)).
+# Newton iteration counts: solvers cap at 32 (§4) / 40 (§5).
+ITER_BUCKETS = (1.0, 2.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0, 40.0)
+# Detector/route margins live in [0, 1); resolution concentrated near 0
+# where routing decisions are fragile.
+MARGIN_BUCKETS = (0.005, 0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.75)
+# Audit q-error = max(est/ref, ref/est) >= 1; log-ish spacing.
+QERROR_BUCKETS = (1.05, 1.1, 1.25, 1.5, 2.0, 3.0, 5.0, 10.0, 30.0, 100.0)
+
+_N_STRIPES = 16
+
+
+def label_tuple(labels: dict) -> LabelTuple:
+    """Frozen, key-sorted label identity (the child-cell dict key)."""
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def escape_label_value(value: str) -> str:
+    """Prometheus label-value escaping: backslash, double-quote, newline."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _escape_help(text: str) -> str:
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def format_labels(labels: Iterable[Tuple[str, str]]) -> str:
+    """`(("k","v"),)` -> `{k="v"}`; empty -> empty string."""
+    items = list(labels)
+    if not items:
+        return ""
+    inner = ",".join(
+        f'{k}="{escape_label_value(v)}"' for k, v in items
+    )
+    return "{" + inner + "}"
+
+
+def format_value(v: float) -> str:
+    """Sample-value rendering: integral floats as ints, else shortest repr."""
+    f = float(v)
+    if f != f:  # NaN
+        return "NaN"
+    if f in (float("inf"), float("-inf")):
+        return "+Inf" if f > 0 else "-Inf"
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+class _Cell:
+    """One (metric, label set) scalar with its striped lock."""
+
+    __slots__ = ("value", "lock")
+
+    def __init__(self, lock: threading.Lock):
+        self.value = 0.0
+        self.lock = lock
+
+
+class _HistCell:
+    """One (histogram, label set): per-bucket counts + sum + count."""
+
+    __slots__ = ("counts", "sum", "count", "lock")
+
+    def __init__(self, n_buckets: int, lock: threading.Lock):
+        self.counts = [0] * n_buckets  # non-cumulative; rendered cumulative
+        self.sum = 0.0
+        self.count = 0
+        self.lock = lock
+
+
+class _Metric:
+    """Shared child-cell bookkeeping for the three primitives."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str, registry: "MetricsRegistry"):
+        self.name = name
+        self.help = help
+        self._registry = registry
+        self._mu = threading.Lock()  # guards the children dict only
+        self._children: Dict[LabelTuple, object] = {}
+        # Hot-path memo: raw (call-site-ordered, unstringified) kwargs
+        # tuple -> cell. Distinct orderings/types of the same labels are
+        # extra memo entries, but all alias ONE canonical cell, so counts
+        # stay exact and the exposition sees a single series.
+        self._fast: Dict[tuple, object] = {}
+
+    def _cell(self, labels: dict):
+        fast_key = tuple(labels.items())
+        cell = self._fast.get(fast_key)
+        if cell is not None:
+            return cell
+        key = label_tuple(labels)
+        with self._mu:
+            cell = self._children.get(key)
+            if cell is None:
+                cell = self._new_cell(self._registry._stripe(key))
+                self._children[key] = cell
+            self._fast[fast_key] = cell
+        return cell
+
+    def _new_cell(self, lock: threading.Lock):
+        return _Cell(lock)
+
+    def snapshot(self) -> List[Tuple[LabelTuple, object]]:
+        with self._mu:
+            return sorted(self._children.items())
+
+
+class _BoundCounter:
+    """A counter pre-resolved to one label set (`Counter.labels(...)`).
+
+    The per-call work is an enabled check, the stripe lock, and the add —
+    for call sites hot enough that rebuilding the label identity every
+    time shows up (the per-request line in the HTTP tier).
+    """
+
+    __slots__ = ("_c",)
+
+    def __init__(self, cell: _Cell):
+        self._c = cell
+
+    def inc(self, amount: float = 1) -> None:
+        if not _state.enabled:
+            return
+        cell = self._c
+        with cell.lock:
+            cell.value += amount
+
+
+class _BoundHistogram:
+    """A histogram pre-resolved to one label set (`Histogram.labels(...)`)."""
+
+    __slots__ = ("_c", "_buckets")
+
+    def __init__(self, cell: _HistCell, buckets: Tuple[float, ...]):
+        self._c = cell
+        self._buckets = buckets
+
+    def observe(self, value: float) -> None:
+        if not _state.enabled:
+            return
+        cell = self._c
+        idx = bisect.bisect_left(self._buckets, value)
+        with cell.lock:
+            cell.count += 1
+            cell.sum += value
+            if idx < len(self._buckets):
+                cell.counts[idx] += 1
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def inc(self, amount: float = 1, **labels) -> None:
+        if not _state.enabled:
+            return
+        cell = self._cell(labels)
+        with cell.lock:
+            cell.value += amount
+
+    def labels(self, **labels) -> _BoundCounter:
+        return _BoundCounter(self._cell(labels))
+
+    def value(self, **labels) -> float:
+        return float(self._cell(labels).value)
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        if not _state.enabled:
+            return
+        cell = self._cell(labels)
+        with cell.lock:
+            cell.value = float(value)
+
+    def inc(self, amount: float = 1, **labels) -> None:
+        if not _state.enabled:
+            return
+        cell = self._cell(labels)
+        with cell.lock:
+            cell.value += amount
+
+    def value(self, **labels) -> float:
+        return float(self._cell(labels).value)
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, help, registry, buckets=LATENCY_BUCKETS_S):
+        super().__init__(name, help, registry)
+        self.buckets: Tuple[float, ...] = tuple(sorted(float(b) for b in buckets))
+
+    def _new_cell(self, lock: threading.Lock):
+        return _HistCell(len(self.buckets), lock)
+
+    def observe(self, value: float, **labels) -> None:
+        if not _state.enabled:
+            return
+        cell = self._cell(labels)
+        idx = bisect.bisect_left(self.buckets, value)
+        with cell.lock:
+            cell.count += 1
+            cell.sum += value
+            if idx < len(self.buckets):
+                cell.counts[idx] += 1
+
+    def labels(self, **labels) -> _BoundHistogram:
+        return _BoundHistogram(self._cell(labels), self.buckets)
+
+
+class _StatsView:
+    """Weakref view over an ad-hoc stats object (dataclass or __slots__)."""
+
+    __slots__ = ("prefix", "labels", "ref")
+
+    def __init__(self, prefix: str, labels: LabelTuple, obj: object):
+        self.prefix = prefix
+        self.labels = labels
+        self.ref = weakref.ref(obj)
+
+
+def _numeric_fields(obj) -> List[Tuple[str, float]]:
+    """The scrape-able (name, value) pairs of a stats object."""
+    if dataclasses.is_dataclass(obj):
+        items = [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
+    elif hasattr(obj, "__slots__"):
+        items = [(s, getattr(obj, s, None)) for s in obj.__slots__]
+    else:
+        items = list(vars(obj).items())
+    out = []
+    for name, v in items:
+        if name.startswith("_"):
+            continue
+        if isinstance(v, bool):
+            v = int(v)
+        if isinstance(v, (int, float)):
+            out.append((name, float(v)))
+    return out
+
+
+class MetricsRegistry:
+    """Process-global (or test-local) metric namespace."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._metrics: "Dict[str, _Metric]" = {}
+        self._views: Dict[tuple, _StatsView] = {}
+        self._locks = [threading.Lock() for _ in range(_N_STRIPES)]
+
+    def _stripe(self, key: LabelTuple) -> threading.Lock:
+        return self._locks[hash(key) % _N_STRIPES]
+
+    def _get(self, name: str, cls, *args):
+        with self._mu:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls(name, *args, self) \
+                    if cls is not Histogram else cls(name, *args[:1], self, *args[1:])
+                return m
+            if not isinstance(m, cls):
+                raise ValueError(
+                    f"metric {name!r} already registered as {m.kind}"
+                )
+            return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get(name, Counter, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get(name, Gauge, help)
+
+    def histogram(
+        self, name: str, help: str = "", buckets=LATENCY_BUCKETS_S
+    ) -> Histogram:
+        return self._get(name, Histogram, help, buckets)
+
+    def register_stats_view(
+        self, prefix: str, labels: dict, obj: object
+    ) -> None:
+        """Expose `obj`'s numeric fields as `{prefix}_{field}` gauges.
+
+        Values are read from the live object at scrape time — the existing
+        stats dataclasses stay the single source of truth (no double
+        counting). Only a weakref is held: when the object is collected,
+        the series disappear. Re-registering the same (prefix, labels)
+        replaces the previous view (replica restarts).
+        """
+        view = _StatsView(prefix, label_tuple(labels), obj)
+        with self._mu:
+            self._views[(prefix, view.labels)] = view
+
+    # -- exposition ----------------------------------------------------------
+
+    def exposition(self) -> str:
+        """Prometheus text format v0.0.4 for everything registered."""
+        out: List[str] = []
+        with self._mu:
+            metrics = list(self._metrics.values())
+            views = list(self._views.items())
+        for m in metrics:
+            self._render_metric(out, m)
+
+        # Views: group all (labels, value) samples by derived metric name
+        # so each name gets exactly one TYPE header (exposition requires
+        # one group per metric).
+        grouped: "Dict[str, List[Tuple[LabelTuple, float]]]" = {}
+        dead: List[tuple] = []
+        for key, view in views:
+            obj = view.ref()
+            if obj is None:
+                dead.append(key)
+                continue
+            for field, value in _numeric_fields(obj):
+                grouped.setdefault(f"{view.prefix}_{field}", []).append(
+                    (view.labels, value)
+                )
+        if dead:
+            with self._mu:
+                for key in dead:
+                    self._views.pop(key, None)
+        for name in sorted(grouped):
+            out.append(f"# TYPE {name} gauge\n")
+            for labels, value in sorted(grouped[name]):
+                out.append(
+                    f"{name}{format_labels(labels)} {format_value(value)}\n"
+                )
+        return "".join(out)
+
+    def _render_metric(self, out: List[str], m: _Metric) -> None:
+        cells = m.snapshot()
+        if not cells:
+            return
+        if m.help:
+            out.append(f"# HELP {m.name} {_escape_help(m.help)}\n")
+        out.append(f"# TYPE {m.name} {m.kind}\n")
+        if isinstance(m, Histogram):
+            for labels, cell in cells:
+                with cell.lock:
+                    counts = list(cell.counts)
+                    total, s = cell.count, cell.sum
+                cum = 0
+                for b, c in zip(m.buckets, counts):
+                    cum += c
+                    le = format_labels(labels + (("le", format_value(b)),))
+                    out.append(f"{m.name}_bucket{le} {cum}\n")
+                le = format_labels(labels + (("le", "+Inf"),))
+                out.append(f"{m.name}_bucket{le} {total}\n")
+                out.append(
+                    f"{m.name}_sum{format_labels(labels)} {format_value(s)}\n"
+                )
+                out.append(f"{m.name}_count{format_labels(labels)} {total}\n")
+        else:
+            for labels, cell in cells:
+                out.append(
+                    f"{m.name}{format_labels(labels)} "
+                    f"{format_value(cell.value)}\n"
+                )
+
+
+def add_label_to_exposition(text: str, labels: dict) -> str:
+    """Inject labels into every sample line of an exposition blob.
+
+    Used by the fleet router to re-emit a scraped replica's `/metrics`
+    under a `replica="<name>"` label. Comment lines are dropped (the
+    aggregate is a concatenation; re-announcing TYPEs for names the
+    router already emitted would be invalid).
+    """
+    extra = ",".join(
+        f'{k}="{escape_label_value(v)}"' for k, v in sorted(labels.items())
+    )
+    out: List[str] = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        # name{existing} value  |  name value
+        head, _, value = line.rpartition(" ")
+        if not head:
+            continue
+        if head.endswith("}"):
+            brace = head.index("{")
+            inner = head[brace + 1:-1]
+            joined = f"{inner},{extra}" if inner else extra
+            out.append(f"{head[:brace]}{{{joined}}} {value}\n")
+        else:
+            out.append(f"{head}{{{extra}}} {value}\n")
+    return "".join(out)
+
+
+_REGISTRY = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    """The process-global registry every tier registers into."""
+    return _REGISTRY

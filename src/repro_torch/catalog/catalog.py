@@ -19,7 +19,8 @@ The catalog's contract (see the package docstring for the design):
     cached per (fingerprint set, mode, schema bounds, engine identity) — a
     warm call
     performs zero packing, just a dict hit. Engine identity is `cache_key`:
-    only the numerics ("t.cuda" for the kernel path, "t.ref"), so engines
+    only the numerics and the device type ("t.cuda", "t.cpu", "t.ref.cuda",
+    "t.ref.cpu"), so engines
     differing merely in execution shape (strategy, chunk budget — all
     bit-identical by the parity contract) share entries; engines that could
     answer differently never share.

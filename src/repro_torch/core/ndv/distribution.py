@@ -50,8 +50,8 @@ def detect_distribution(
       mins / maxs: (B, R) per-row-group extrema (float key space).
       valid: (B, R) bool mask; row groups are packed to the left.
       backend: "auto"/"cuda" take the reductions from the `minmax_scan`
-        kernel (its plain version for CPU tensors); "ref" computes them here.
-        The ratio/classification tail is shared.
+        kernel (its plain version for CPU tensors); "ref" from the plain
+        version on any device. The ratio/classification tail is shared.
 
     Returns:
       DistributionMetrics with int32 layout codes from `Layout`.
@@ -62,43 +62,19 @@ def detect_distribution(
 
     from repro_torch.kernels import ops  # local: kernels.ref imports this package
 
+    # The kernel path launches the `minmax_scan` kernel (its plain version
+    # for CPU tensors); "ref" computes the same reductions with that plain
+    # version, which is exact but for the order of one float sum.
+    mm = ops.minmax_scan(mins, maxs, valid, backend=backend)
+    n = mm.n_valid
     if ops.use_kernels(backend):
-        mm = ops.minmax_scan(mins, maxs, valid, backend=backend)
-        n = mm.n_valid
-        gmin, gmax = mm.gmin, mm.gmax
-        overlap_sum = mm.overlap_sum
-        sign_changes = mm.sign_changes
         # Row groups are packed to the left, so "any valid consecutive
         # pair" is exactly n >= 2.
         any_pairs = n >= 2.0
     else:
-        n = valid.sum(dim=-1).to(torch.float32)  # (B,)
+        any_pairs = (valid[:, :-1] & valid[:, 1:]).any(dim=-1)
 
-        big = 3.4e38
-        gmin = torch.where(valid, mins, big).amin(dim=-1)
-        gmax = torch.where(valid, maxs, -big).amax(dim=-1)
-
-        # Consecutive-pair overlap (Eq 10), masked to valid pairs.
-        pair_valid = valid[:, :-1] & valid[:, 1:]
-        lo = torch.maximum(mins[:, :-1], mins[:, 1:])
-        hi = torch.minimum(maxs[:, :-1], maxs[:, 1:])
-        overlap = torch.where(pair_valid, torch.clamp(hi - lo, min=0.0), 0.0)
-        overlap_sum = overlap.sum(dim=-1)
-
-        # Midpoint monotonicity (Eq 12).
-        mid = (mins + maxs) * 0.5
-        d = mid[:, 1:] - mid[:, :-1]                  # (B, R-1)
-        d = torch.where(pair_valid, d, 0.0)
-        sgn = torch.sign(d)
-        # Sign changes between consecutive non-zero deltas, masked.
-        step_valid = pair_valid[:, :-1] & pair_valid[:, 1:]
-        changes = torch.where(
-            step_valid & (sgn[:, :-1] * sgn[:, 1:] < 0), 1.0, 0.0
-        )
-        sign_changes = changes.sum(dim=-1)
-        any_pairs = pair_valid.sum(dim=-1) > 0
-
-    total_span = torch.clamp(gmax - gmin, min=0.0)
+    total_span = torch.clamp(mm.gmax - mm.gmin, min=0.0)
 
     # Degenerate spans (constant column / single row group): define the
     # overlap ratio as 1 when consecutive ranges coincide (full overlap) —
@@ -106,13 +82,13 @@ def detect_distribution(
     span_safe = torch.clamp(total_span, min=1e-30)
     degenerate = (total_span <= 0.0) & any_pairs
     overlap_ratio = torch.where(
-        degenerate, 1.0, torch.clamp(overlap_sum / span_safe, min=0.0)
+        degenerate, 1.0, torch.clamp(mm.overlap_sum / span_safe, min=0.0)
     )
     # (ratio can legitimately exceed 1 for heavy overlap with many groups;
     #  classification only needs thresholds, keep the raw value.)
 
     denom = torch.clamp(n - 2.0, min=1.0)
-    monotonicity = torch.where(n >= 3.0, 1.0 - sign_changes / denom, 1.0)
+    monotonicity = torch.where(n >= 3.0, 1.0 - mm.sign_changes / denom, 1.0)
 
     layout = classify(overlap_ratio, monotonicity, n)
     return DistributionMetrics(

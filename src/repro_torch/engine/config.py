@@ -51,8 +51,8 @@ class EngineConfig:
 
     Cache-key neutrality: by the parity contract `strategy`, `max_batch`
     and `fuse` never change results, so they stay out of
-    `EstimationEngine.cache_key` / `cache_token`. Only `backend` chooses the
-    numerics, and only it is identity.
+    `EstimationEngine.cache_key` / `cache_token`. Only `backend` and the
+    device's type choose the numerics, and only they are identity.
     """
 
     strategy: str = "auto"

@@ -103,16 +103,18 @@ class EstimationEngine:
 
     @property
     def cache_token(self) -> str:
-        """Numerics identity as a compact stable string: "t.cuda" for the
-        kernel path, "t.ref" for the reference numerics.
+        """Numerics identity as a compact stable string: the backend's
+        numerics on this engine's device type ("t.cuda", "t.cpu",
+        "t.ref.cuda", "t.ref.cpu").
 
         Never the JAX package's "k.*" tokens: the two packages may differ
-        in the last ulp, so neither may validate the other's results.
-        Strategy, chunk budget and fuse are numerics-neutral and stay out.
+        in the last ulp, so neither may validate the other's results; the
+        same holds between the card and the CPU. Strategy, chunk budget and
+        fuse are numerics-neutral and stay out.
         """
         from repro_torch.kernels import ops
 
-        return ops.cache_token(self.config.backend)
+        return ops.cache_token(self.config.backend, self.device.type)
 
     @property
     def cache_key(self) -> tuple:

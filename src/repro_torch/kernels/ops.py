@@ -39,9 +39,15 @@ def use_kernels(backend: Backend) -> bool:
     return backend != "ref"
 
 
-def cache_token(backend: Backend) -> str:
-    """Numerics identity of a backend: "t.cuda" (kernel path) or "t.ref"."""
-    return "t.cuda" if use_kernels(backend) else "t.ref"
+def cache_token(backend: Backend, device_type: str) -> str:
+    """Numerics identity of a backend on a device type.
+
+    The kernel path is "t.cuda" (the CUDA kernels) or "t.cpu" (their plain
+    versions); the reference numerics are "t.ref.cuda" or "t.ref.cpu". The
+    device is part of it because the CUDA and CPU math libraries differ in
+    the last ulp, which can flip a clamp bit (ROADMAP Queue C item 2).
+    """
+    return f"t.{device_type}" if use_kernels(backend) else f"t.ref.{device_type}"
 
 
 def use_fused(fuse: str) -> bool:
@@ -96,7 +102,7 @@ def minmax_scan(mins, maxs, valid, *, backend: Backend = "auto"):
     """Detector metric reductions over (B, R) row-group statistics."""
     if not use_kernels(backend):
         # The reductions are exact apart from the order of one float sum, so
-        # the plain version is also the reference.
+        # the plain version is also the reference (the "ref" detector's).
         return _mm.minmax_metrics_math(mins, maxs, valid)
     _check_device(backend, "minmax_scan", mins)
     return _mm.minmax_scan(mins, maxs, valid)

@@ -45,13 +45,14 @@ def jax_ref():
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
-    """lineitem plus the standard suite's int and small-domain columns, one
-    table split over 3 files in row groups of 512."""
+    """lineitem plus every column of the standard suite, one table split over
+    3 files in row groups of 512. The five `*_str_large` columns (a domain of
+    100k strings, nearly every row distinct) hold the saturated coupon lanes
+    and the high-cardinality dictionaries against the reference; drawing
+    their domains is most of this fixture's cost (about 17 s on a CPU)."""
     root = tmp_path_factory.mktemp("ds")
     rows = 3 * 2048
-    cols = {s.name: s.generate()[0]
-            for s in generator.standard_suite(rows=rows, seed=1)
-            if s.dtype == "int" or s.ndv <= 5000}
+    cols = {s.name: s.generate()[0] for s in generator.standard_suite(rows=rows, seed=1)}
     cols.update({k: v for k, (v, _) in datasets.lineitem(rows, seed=1).items()})
     shards = [{k: v[i * 2048:(i + 1) * 2048] for k, v in cols.items()} for i in range(3)]
     writer.write_dataset(str(root), shards, options=writer.WriterOptions(row_group_size=512))
@@ -121,7 +122,7 @@ def test_warm_estimate_copies_the_batch_once(dataset):
 
 
 def test_cache_identity_is_the_ports_own(dataset, tmp_path, jax_ref):
-    for backend, token in (("auto", "t.cuda"), ("cuda", "t.cuda"), ("ref", "t.ref")):
+    for backend, token in (("auto", "t.cpu"), ("cuda", "t.cpu"), ("ref", "t.ref.cpu")):
         eng = _cpu(backend=backend)
         assert eng.cache_token == token and not eng.cache_token.startswith("k.")
         assert eng.cache_key == (token,)
@@ -139,6 +140,34 @@ def test_cache_identity_is_the_ports_own(dataset, tmp_path, jax_ref):
     assert warm.stats.packs == 0
     assert StatsCatalog(dataset, engine=_cpu(backend="ref")).load_cache() == 1
     os.remove(path)
+
+
+def test_cpu_spill_is_not_served_to_a_cuda_engine(dataset, tmp_path):
+    """The CPU's plain versions and the CUDA kernels may differ in the last
+    ulp, so an estimate spilled by a CPU engine is never a CUDA engine's."""
+    cat = StatsCatalog(dataset, engine=_cpu())
+    cat.estimate(mode="paper")
+    path = cat.save_cache(str(tmp_path / CACHE_FILE_NAME))
+    warm = StatsCatalog(dataset, engine=_cpu())
+    assert warm.load_cache(path) == 1
+    on_card = _cpu()
+    on_card.device = torch.device("cuda", 0)  # its identity only; nothing runs
+    assert on_card.cache_token == "t.cuda"
+    assert warm.estimate_cache_peek(warm.estimate_key(mode="paper", engine=on_card)) is None
+    assert warm.estimate_cache_peek(warm.estimate_key(mode="paper")) is not None
+
+
+@pytest.mark.cuda
+def test_cuda_catalog_recomputes_over_a_cpu_spill(dataset, tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cat = StatsCatalog(dataset, engine=_cpu())
+    cat.estimate(mode="improved")
+    path = cat.save_cache(str(tmp_path / CACHE_FILE_NAME))
+    on_card = StatsCatalog(dataset)
+    assert on_card.load_cache(path) == 1
+    on_card.estimate(mode="improved")
+    assert on_card.stats.estimate_cache_hits == 0 and on_card.stats.packs == 1
 
 
 def test_default_device_is_the_card_and_never_falls_back(dataset, monkeypatch):

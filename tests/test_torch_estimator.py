@@ -196,8 +196,10 @@ def test_fuse_knob_on_the_cpu(mode):
 
 
 def test_cache_tokens_are_the_ports_own():
-    assert tops.cache_token("auto") == tops.cache_token("cuda") == "t.cuda"
-    assert tops.cache_token("ref") == "t.ref"
+    assert tops.cache_token("auto", "cuda") == tops.cache_token("cuda", "cuda") == "t.cuda"
+    assert tops.cache_token("auto", "cpu") == "t.cpu"
+    assert tops.cache_token("ref", "cuda") == "t.ref.cuda"
+    assert tops.cache_token("ref", "cpu") == "t.ref.cpu"
 
 
 @pytest.mark.cuda
